@@ -5,6 +5,10 @@ run_script.sh workflow, Results/poseOptimization_{on,off}/<mask>/... layout).
 
 Default runs the synthetic sequence (no dataset needed); pass --euroc for a
 real EuRoC directory.
+
+The runs go one after another, one driver process at a time: each driver is
+a JAX process that reserves most of the accelerator's memory when it starts,
+so a second one running beside it on the same card would fail.
 """
 
 import argparse

@@ -31,9 +31,9 @@ def main():
     ap.add_argument("--async-mapping", action="store_true")
     args = ap.parse_args()
 
-    import jax
+    from fasttrack_tpu.compile_cache import enable_compile_cache
 
-    jax.config.update("jax_compilation_cache_dir", os.path.expanduser("~/.fasttrack_jax_cache"))
+    enable_compile_cache()
 
     from fasttrack_tpu.datasets import EurocSequence
     from fasttrack_tpu.kernels import KernelConfig

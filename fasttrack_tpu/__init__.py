@@ -1,35 +1,34 @@
-"""fasttrack_tpu — a TPU-native visual-inertial SLAM engine.
+"""fasttrack_tpu — a visual-inertial SLAM engine in JAX, run on the GPU.
 
-A from-scratch JAX/XLA/Pallas re-design of the capability set of
-sfu-rsl/FastTrack (a GPU-accelerated ORB-SLAM3 fork):
+A from-scratch JAX/XLA re-design of the capability set of sfu-rsl/FastTrack
+(a GPU-accelerated ORB-SLAM3 fork):
 
 - ORB feature extraction (pyramid resize/blur, FAST, IC-angle, rotated BRIEF)
-  as batched XLA/Pallas kernels over a padded level tensor.
+  as batched XLA programs over a padded level tensor.
 - Rectified-stereo / fisheye descriptor matching and map-point
-  search-by-projection as masked Hamming-distance kernels that ride the MXU
-  (descriptors as signed-bit vectors, Hamming distance = matmul).
+  search-by-projection as masked Hamming-distance matmuls (descriptors as
+  signed-bit vectors, Hamming distance = int8 matmul).
 - Pose optimization / local & inertial bundle adjustment as a JAX
   Levenberg-Marquardt solver with Schur-complement reduction.
 - Tracking / LocalMapping / LoopClosing pipeline with a multi-map Atlas,
   IMU preintegration, per-stage offload toggles and timing stats.
 - EuRoC / TUM-VI / KITTI / TUM RGB-D dataset drivers and ATE evaluation.
 
-The reference implementation is studied (not copied) from /root/reference;
-docstrings cite reference files as `File.cc:line` for parity checking.
+The reference implementation is studied, not copied; docstrings cite
+reference files as `File.cc:line` for parity checking.
 """
 
 __version__ = "0.1.0"
 
 import jax as _jax
 
-# TPU MXU matmuls default to one bf16 pass for float32 inputs — fine for
-# image smoothing, catastrophic for geometry: point-coordinate matmuls
-# round at ~1e-2 relative (centimetres at map scale) and the error rides
-# through projection into every match window and pose solve (measured:
-# 8x worse ATE on the 1000-frame gate vs CPU). Geometry is therefore pinned
-# to full f32 globally; the one genuinely hot image matmul (pyramid
-# resize/blur, ops/pyramid.py) explicitly opts back into DEFAULT, and the
-# Hamming matchers are int8 (unaffected).
+# On the GPU, float32 matmuls at the default precision run in TF32, which
+# keeps ~3 decimal digits — fine for image smoothing, not for geometry:
+# point-coordinate matmuls would round at ~1e-3 relative and the error
+# rides through projection into every match window and pose solve.
+# Matmuls are therefore pinned to full f32 globally; the single-image
+# pyramid (ops/pyramid.py) explicitly opts back into DEFAULT, and the
+# Hamming matchers are int8 (exact at any precision).
 _jax.config.update("jax_default_matmul_precision", "highest")
 
 from fasttrack_tpu.kernels import KernelConfig, Stage  # noqa: F401

@@ -173,7 +173,7 @@ def global_bundle_adjustment(
     """Whole-map BA (Optimizer::GlobalBundleAdjustemnt, Optimizer.cc:52;
     driven from RunGlobalBundleAdjustment, LoopClosing.cc:2268-2512).
 
-    TPU-shape-first design: instead of one huge sparse g2o solve (dynamic
+    Fixed-shape design: instead of one huge sparse g2o solve (dynamic
     sparsity = recompilation), the map is swept in fixed-shape Schur windows
     (the XLA-compiled unit) in keyframe-id order with a half-window overlap;
     each block's frontier (neighbouring keyframes outside the block) is held

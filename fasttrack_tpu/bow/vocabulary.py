@@ -1,7 +1,7 @@
-"""Binary visual vocabulary: flat word centroids, MXU quantization.
+"""Binary visual vocabulary: flat word centroids, matmul quantization.
 
 Replaces DBoW2::TemplatedVocabulary (Thirdparty/DBoW2). Training is
-k-majority (binary k-means: Hamming assignment via MXU matmul + per-bit
+k-majority (binary k-means: Hamming assignment via int8 matmul + per-bit
 majority vote update); quantization of a frame's descriptors is one
 (N, 256) x (256, W) int8 matmul + argmin. tf-idf weighting and L1 scoring
 follow DBoW2 (TF_IDF / L1_NORM defaults used by ORBVocabulary).
@@ -40,7 +40,7 @@ class TreeVocabulary(NamedTuple):
     replacement at scale): B level-1 nodes, C children per node, B*C leaf
     words. Quantization is a STAGED Hamming argmin — one small matrix
     against the nodes, then one against the chosen node's children
-    (SURVEY 2.3: matmul-able on MXU; on host it runs through the native
+    (SURVEY 2.3: matmul-able on a device; on host it runs through the native
     popcount kernel grouped by node). Descriptors stored PACKED (32 bytes)
     so a 32k-leaf vocabulary ships at ~1 MB vs the reference's 145 MB
     text ORBvoc."""
@@ -201,7 +201,7 @@ def quantize(voc, descs_signed: np.ndarray, valid: np.ndarray | None = None):
     """Descriptors -> (word_ids (N,), bow dict word -> tf-idf weight).
 
     The bow vector is L1-normalized (DBoW2 L1_NORM). Dispatches on the
-    vocabulary flavor (flat MXU argmin vs staged tree argmin)."""
+    vocabulary flavor (flat matmul argmin vs staged tree argmin)."""
     if isinstance(voc, TreeVocabulary):
         return quantize_tree(voc, descs_signed, valid)
     if len(descs_signed) == 0:

@@ -7,7 +7,7 @@ Parity targets:
   :111-176 (Newton unprojection), equidistant fisheye with 4 distortion
   coefficients (k0..k3 on theta^3, theta^5, theta^7, theta^9).
 
-Design notes (TPU-first): a fixed-width parameter vector (8 floats, unused
+Design notes: a fixed-width parameter vector (8 floats, unused
 slots zero) keeps one jitted code path per camera *kind* while staying fully
 batched; `kind` is a Python-level static so lax.cond is not needed.
 """

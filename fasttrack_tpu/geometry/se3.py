@@ -22,9 +22,8 @@ from fasttrack_tpu.geometry.so3 import (
 
 
 def _mm(a, b):
-    """3x3 matmuls must stay exact on TPU: the MXU default (bf16 inputs)
-    is fine for the big Hamming/BA matmuls but corrupts rotation algebra
-    (observed 2e-2 drift in compose-inverse on a v5e). Pin HIGHEST."""
+    """3x3 matmuls in full f32: a reduced-precision default (TF32 on the
+    GPU keeps ~3 decimal digits) corrupts rotation algebra. Pin HIGHEST."""
     return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
 
 

@@ -6,7 +6,7 @@ bias Jacobians JRg, JVg, JVa, JPg, JPa, and the 15x15 covariance propagated
 with the standard (Forster et al.) discrete model, plus bias-corrected
 delta getters used by the inertial optimization edges (G2oTypes EdgeInertial).
 
-TPU-first design: measurements arrive as padded fixed-shape arrays
+Fixed-shape design: measurements arrive as padded fixed-shape arrays
 (acc (N,3), gyro (N,3), dt (N,)) with dt==0 rows acting as no-ops, so one
 jitted scan covers every frame regardless of sample count; batches of
 preintegrations vmap cleanly (used by the inertial BA over keyframe windows).
@@ -22,8 +22,7 @@ import jax.numpy as jnp
 from fasttrack_tpu.geometry.so3 import hat, so3_exp, so3_log, so3_right_jacobian
 
 GRAVITY_VALUE = 9.81  # ImuTypes.h:43
-# tuple, not a module-level jnp array (a captured device-buffer constant
-# degrades the runtime's dispatch path); jnp.asarray'd at trace time
+# tuple, not a module-level jnp array; jnp.asarray'd at trace time
 GRAVITY = (0.0, 0.0, -GRAVITY_VALUE)
 
 

@@ -1,7 +1,7 @@
 """Accelerator compute ops (the reference's CUDA kernel layer, re-designed).
 
-Everything here is fixed-shape, jit-safe, and batched; the hot ops also have
-Pallas TPU kernels under fasttrack_tpu.ops.pallas selected at build time.
+Everything here is fixed-shape, jit-safe, and batched plain JAX; XLA
+compiles it for the device.
 """
 
 from fasttrack_tpu.ops.pyramid import build_pyramid, PyramidConfig  # noqa: F401

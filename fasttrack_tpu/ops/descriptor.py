@@ -4,10 +4,10 @@ Parity target: src/descriptor.cu:20-89 (compute_descriptor_kernel): for each
 keypoint, rotate the 256 sampling pairs by the IC angle, read the *blurred*
 pyramid, compare each pair -> one bit; 32-byte descriptor.
 
-TPU design: all N keypoints x 512 sample points become a single flat gather
+Design: all N keypoints x 512 sample points become a single flat gather
 into the (L*H*W) blurred tensor; the pack to 32 uint8 bytes is a matmul with
 a power-of-two matrix. Descriptors are returned both as +-1 int8 vectors
-(N, 256) — the MXU-matmul Hamming format — and packed bytes (N, 32) for
+(N, 256) — the Hamming-matmul format — and packed bytes (N, 32) for
 storage/serialization parity.
 """
 
@@ -50,11 +50,11 @@ def brief_descriptors(
     return (a < b).astype(jnp.uint8)  # (N, 256)
 
 
-# ---- patch-based descriptor path (the fast TPU route) ----------------------
+# ---- patch-based descriptor path ------------------------------------------
 #
 # Rotation is quantized to N_ANGLE_BINS; per bin the rotated 512 sample
 # points become a constant 0/1 sampling matrix over the flattened patch, so
-# sampling ALL keypoints for ALL bins is a single bf16 MXU einsum, and the
+# sampling ALL keypoints for ALL bins is a single bf16 matmul, and the
 # per-keypoint bin select is a small gather. 22.5-degree bins cost <1 bit of
 # extra Hamming noise vs continuous rotation (pattern points are rounded to
 # integer pixels either way).
@@ -87,10 +87,10 @@ def brief_from_patches(patches: jnp.ndarray, angle: jnp.ndarray) -> jnp.ndarray:
     """patches (N, P, P) blurred intensity, angle (N,) radians ->
     (N, 256) {0,1} bit matrix.
 
-    ONE MXU matmul (N, P*P) @ (P*P, A*512) computes the sampled values for
+    ONE matmul (N, P*P) @ (P*P, A*512) computes the sampled values for
     every angle bin, then a take_along_axis picks each keypoint's bin.
-    (The einsum form "asp,np->ans" lowered to a transposed batch matmul that
-    measured ~350 ms on the bench chip; this layout runs in ~1 ms.)"""
+    Operands are bf16 (0/1 sampling weights, intensities rounded to 8
+    significant bits) with f32 sums."""
     n = patches.shape[0]
     flat = patches.reshape(n, -1).astype(jnp.bfloat16)          # (N, P*P)
     S = jnp.asarray(

@@ -71,7 +71,7 @@ class Keypoints(NamedTuple):
     level: jnp.ndarray    # (N,) int32 octave
     angle: jnp.ndarray    # (N,) float32 radians
     score: jnp.ndarray    # (N,) float32 FAST score
-    desc_signed: jnp.ndarray  # (N, 256) int8 +-1 — the MXU matching format
+    desc_signed: jnp.ndarray  # (N, 256) int8 +-1 — the Hamming-matmul format
     desc_packed: jnp.ndarray  # (N, 32) uint8 — storage format
     valid: jnp.ndarray    # (N,) bool
 
@@ -146,9 +146,8 @@ def extract_orb_pair(image_left: jnp.ndarray, image_right: jnp.ndarray,
     """Extract ORB for BOTH stereo images in one flat pipeline.
 
     The pyramids are stacked into a (2L, H, W) level tensor so FAST,
-    patch-gather, IC-angle and BRIEF all run once over 2N keypoints —
-    an outer vmap over cameras would batch the per-keypoint dynamic slices
-    into scatter-gathers that are ~10x slower on TPU.
+    patch-gather, IC-angle and BRIEF all run once over 2N keypoints
+    rather than under an outer vmap over cameras.
     Returns (kps_left, kps_right, pyr_left, pyr_right).
     """
     from fasttrack_tpu.ops.descriptor import PATCH_HALF_EXT, brief_from_patches
@@ -158,8 +157,7 @@ def extract_orb_pair(image_left: jnp.ndarray, image_right: jnp.ndarray,
 
     pcfg = config.pyramid
     L = pcfg.n_levels
-    # Accept uint8 frames: upload 1 byte/px over the host link (4x less
-    # transfer than float32 — the link, not the chip, is the bottleneck)
+    # Accept uint8 frames: upload 1 byte/px (4x less transfer than float32)
     # and widen on device.
     image_left = image_left.astype(jnp.float32)
     image_right = image_right.astype(jnp.float32)
@@ -228,8 +226,7 @@ def extract_orb_pair_stacked(images: jnp.ndarray, config: OrbConfig):
     """extract_orb_pair on a stacked (2, H, W) image tensor.
 
     The stacked form lets the caller upload BOTH camera images in ONE
-    host->device transfer (the per-transfer overhead on the host link is
-    ~4x one image's wire time; uint8 halves again vs float32)."""
+    host->device transfer."""
     return extract_orb_pair(images[0], images[1], config)
 
 

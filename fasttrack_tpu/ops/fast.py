@@ -4,11 +4,11 @@ Parity target: src/fast.cu (fast_corner kernel, :243-330; segment test
 isKeyPoint2 :182, cornerScore :157) — FAST-9/16 with a low-threshold retry
 when a cell found nothing, NMS, and per-level compaction.
 
-TPU-first re-design:
+Vectorized re-design:
 - The segment test's contiguous-arc check runs as bit tricks on a 16-bit
   mask plane: run-length >= 9 via mask-rotation doubling (replaces the
-  reference's 64KB lookup table `c_table`, which would be a scalar gather —
-  poison on the VPU).
+  reference's 64KB lookup table `c_table`, which would be a per-pixel
+  scalar gather).
 - The corner *score* (max threshold at which the pixel stays a corner,
   = max over the 16 arcs of the min |diff| in a 9-arc) is computed by the
   same doubling trick on float planes; the dual-threshold retry

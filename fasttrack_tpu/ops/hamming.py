@@ -1,14 +1,14 @@
-"""Hamming distance between binary descriptors — as MXU matmuls.
+"""Hamming distance between binary descriptors — as int8 matmuls.
 
 Parity target: CudaUtils.cu:42-56 (__device__ DescriptorDistance, popcount
 over 8 uint32 words) and ORBmatcher.cc:2256 (CPU popcount).
 
-TPU-first design: a binary descriptor d in {0,1}^256 is stored as a signed
-vector s = 2d-1 in int8. For two descriptors,
+Design: a binary descriptor d in {0,1}^256 is stored as a signed vector
+s = 2d-1 in int8. For two descriptors,
     <s1, s2> = 256 - 2 * hamming(d1, d2)
-so a full (N, M) Hamming matrix is ONE int8 matmul on the MXU with int32
-accumulation — this replaces every per-pair popcount loop in the reference's
-matching kernels and rides the TPU's strongest unit instead of its weakest.
+so a full (N, M) Hamming matrix is ONE int8 matmul with int32 accumulation
+(exact) — this replaces every per-pair popcount loop in the reference's
+matching kernels. On the GPU, XLA compiles it as a GEMM.
 """
 
 from __future__ import annotations
@@ -40,11 +40,8 @@ def hamming_matrix(s1: jnp.ndarray, s2: jnp.ndarray) -> jnp.ndarray:
 def hamming_matrix_f32(s1: jnp.ndarray, s2: jnp.ndarray) -> jnp.ndarray:
     """(N, M) Hamming distances as float32 (values are exact integers <=256).
 
-    The matcher hot paths mask/argmin this matrix; on the TPU runtime in use,
-    elementwise combines of a large *computed int32* matrix with a computed
-    predicate mask degrade the session's dispatch path permanently (~25 ms
-    per subsequent sync, measured), while the identical program on float32
-    is clean. All matchers therefore work in f32; distances are exact."""
+    The matchers add float penalties to this matrix and take top-k / argmin
+    over it, so they work in f32; distances are exact."""
     dot = jax.lax.dot_general(
         s1,
         s2,

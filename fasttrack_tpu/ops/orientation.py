@@ -4,7 +4,7 @@ Parity target: src/orientation.cu:20-87 (compute_orientation_kernel) /
 ORBextractor.cc IC_Angle — moments m10, m01 over a radius-15 circular patch
 on the *raw* pyramid level, angle = atan2(m01, m10).
 
-TPU design: one (31, 31) dynamic-slice gather per keypoint, vmapped over the
+Design: one (31, 31) dynamic-slice gather per keypoint, vmapped over the
 padded keypoint set; the circular mask and coordinate grids are constants
 folded into the kernel.
 """
@@ -40,8 +40,7 @@ def extract_patches(
     level: jnp.ndarray,
     half: int,
 ) -> jnp.ndarray:
-    """(N, 2*half+1, 2*half+1) patches via vmapped dynamic_slice — measured
-    4-6x faster than advanced-indexing gathers on TPU (latency-bound)."""
+    """(N, 2*half+1, 2*half+1) patches via vmapped dynamic_slice."""
     P = 2 * half + 1
 
     def one(li, yi, xi):
@@ -73,7 +72,7 @@ def _moment_weights_np(patch_size: int) -> np.ndarray:
 def ic_angles_from_patches(patches: jnp.ndarray) -> jnp.ndarray:
     """IC angle from pre-gathered patches with center at the middle; the
     patch may be larger than the 31x31 moment window. ONE (N, P*P) @ (P*P, 2)
-    MXU matmul (float32: moments are sums of ~700 pixel values — bf16 would
+    matmul (float32: moments are sums of ~700 pixel values — bf16 would
     cost ~3 bits of mantissa and visibly perturb angles)."""
     n, P, _ = patches.shape
     w = jnp.asarray(_moment_weights_np(P))

@@ -1,19 +1,18 @@
-"""Image pyramid: bilinear resize + 7x7 Gaussian blur — as MXU matmuls.
+"""Image pyramid: bilinear resize + 7x7 Gaussian blur — as matmuls.
 
 Parity targets: src/resize.cu:19-57 (bilinear pyramid, all levels in one 3-D
 launch over a level-0-pitch buffer) and src/gaussian_blur.cu:17-54 (7x7
 conv per level; KW=KH=7, SIGMA=2 — include/ORBextractor.h:33-35).
 
-TPU-first design: levels live in ONE padded tensor (L, H0, W0) exactly like
+Design: levels live in ONE padded tensor (L, H0, W0) exactly like
 the reference's `level*cols*rows` device layout (fast.cu:270), so FAST /
 orientation / descriptor run as single fused ops across all levels.
 
 Resize and blur are both LINEAR in the image, and separable by rows/columns,
 so every level (raw and blurred) is computed as `A_l @ img @ B_l^T` with
 per-level constant matrices that fold resize + blur + zero-padding into one
-pair of batched MXU matmuls. A C=1 depthwise conv (the naive translation of
-gaussian_blur.cu) leaves 127/128 of the MXU idle and measured ~40 ms/frame;
-this form runs the same math in well under a millisecond.
+pair of batched matmuls, in place of a C=1 depthwise conv (the naive
+translation of gaussian_blur.cu).
 """
 
 from __future__ import annotations
@@ -127,10 +126,10 @@ def _apply_pyramid_ops(img: jnp.ndarray, config: PyramidConfig) -> jnp.ndarray:
     rows = jnp.asarray(rows_np)
     cols = jnp.asarray(cols_np)
     # (2L, H0, H0) @ (H0, W0) -> (2L, H0, W0)   [batched row resample+blur]
-    # precision DEFAULT (single bf16 pass): gray values are 0-255, the
-    # ~0.5-level rounding is far below FAST's threshold — this pair of
-    # matmuls is the hot-path FLOPs and must ride the MXU at full rate
-    # (the package pins geometry matmuls to HIGHEST globally, __init__.py).
+    # precision DEFAULT (TF32 on the GPU, ~3 decimal digits): gray values
+    # are 0-255 and the rounding stays far below FAST's threshold; this
+    # pair of matmuls is most of the extraction FLOPs (the package pins f32
+    # matmuls to HIGHEST globally, __init__.py).
     tmp = jax.lax.dot_general(
         rows, img, (((2,), (0,)), ((), ())),
         preferred_element_type=jnp.float32,

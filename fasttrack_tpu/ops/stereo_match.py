@@ -11,25 +11,21 @@ Parity targets:
 - fisheyeStereoMatchKernel (StereoMatchKernel.cu:311-348): brute-force
   all-pairs Hamming with the Lowe 0.7 ratio test.
 
-TPU-first design: the row-bucket scan becomes a full (N_L, N_R) MXU Hamming
-matmul, then a TOP-K CANDIDATE architecture: `lax.top_k` keeps the K=32
+Design: the row-bucket scan becomes a full (N_L, N_R) Hamming matmul, then
+a TOP-K CANDIDATE architecture: `lax.top_k` keeps the K=32
 best-Hamming candidates per left keypoint, and every gating window (row
 band, disparity band, octave band) is applied as an additive float penalty
 over the small (N, K) candidate list before the final argmin. Validity
 gates enter the (N, M) matrix only as rank-1 broadcast penalties.
 
-Why this exact shape: on the target TPU runtime, programs that build (N, M)
-pairwise window terms (two-sided broadcasts of per-keypoint vectors) or
-combine computed predicate masks with the distance matrix fall off the fast
-dispatch path — ~25 ms per synchronized call vs ~0.2 ms for this top-K
-form, measured, and they degrade every subsequent dispatch in the session.
-dot / top_k / gathers / rank-1 broadcasts / small (N, K) arithmetic all
-stay on the fast path. Semantics: exact except when a true in-window match
+No (N, M) pairwise window terms or predicate masks are built: the big
+matrix sees only rank-1 penalties, and all window arithmetic is on the
+small (N, K) list. Semantics: exact except when a true in-window match
 is not among the K best-Hamming candidates (vanishingly rare for real
 descriptors; the reference's grid walk has analogous per-cell caps,
 CudaUtils keypointsPerCell=20). The cooperative shared-memory refinement
-becomes a whole-row gather + one-hot column matmul (MXU) with a
-closed-form parabola fit.
+becomes a whole-row gather + one-hot column matmul with a closed-form
+parabola fit.
 """
 
 from __future__ import annotations
@@ -43,9 +39,7 @@ import jax.numpy as jnp
 from fasttrack_tpu.ops.hamming import hamming_matrix_f32
 
 TH_HIGH = 100
-# Python floats, NOT jnp scalars: a module-level jnp constant is a DEVICE
-# buffer; capturing one into jitted code embeds a cross-program constant
-# that permanently degrades the session's dispatch path (measured).
+# Python floats, so they trace as compile-time literals.
 BIG = 1e9
 PEN = 1e6   # per-unit window-excess penalty (>> 256 max Hamming)
 TOP_K = 64    # Hamming candidates per query kept for window gating
@@ -80,9 +74,7 @@ class StereoMatches(NamedTuple):
 
 @jax.jit
 def match_rectified(
-    # left keypoints (x/y as separate 1-D arrays: an (N, 2) packed array
-    # wastes 126 of 128 lanes in TPU tiling and its cross-program slicing
-    # falls off the fast dispatch path — measured)
+    # left keypoints (x/y as separate 1-D arrays)
     l_x: jnp.ndarray,       # (N,) level-0 coords (undistorted/rectified)
     l_y: jnp.ndarray,       # (N,)
     l_level: jnp.ndarray,   # (N,)
@@ -147,12 +139,9 @@ def match_rectified(
     safe_x = jnp.clip(l_xl, W_PATCH + L_SHIFT + 1, l_pyr.shape[2] - W_PATCH - L_SHIFT - 2)
     safe_ur = jnp.clip(scaled_uR, W_PATCH + L_SHIFT + 1, l_pyr.shape[2] - W_PATCH - L_SHIFT - 2)
 
-    # Patch gathers, TPU-style: (a) ONE whole-row gather (major-axis take of
-    # contiguous rows — the only gather shape the TPU memory system likes),
-    # then (b) per-keypoint column selection as a batched one-hot matmul on
-    # the MXU (arithmetic one-hot: no predicate intermediates). The earlier
-    # vmapped dynamic_slice form was a compile-time bomb (~4 min of XLA time
-    # on a v5e) and lowered to a serialized gather loop at runtime.
+    # Patch gathers: (a) ONE whole-row gather (major-axis take of contiguous
+    # rows), then (b) per-keypoint column selection as a batched one-hot
+    # matmul (arithmetic one-hot: no predicate intermediates).
     ur0 = jnp.round(safe_ur).astype(jnp.int32)
     WIN = P + 2 * L_SHIFT
     n_kp = n

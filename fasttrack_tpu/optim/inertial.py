@@ -12,15 +12,15 @@ Parity targets:
   recent keyframes with per-KF (pose, velocity, bias) states, inertial edges
   between consecutive KFs, visual edges to the window map points.
 
-TPU-first design: everything is fixed-shape and jitted. Outlier handling is
+Design: everything is fixed-shape and jitted. Outlier handling is
 the reference's chi2 re-classification between rounds (4 rounds, masked
 residuals instead of graph surgery). The 15-dim state tangent is
 [dphi, dp, dv, dbg, dba] with the reference's retraction
 (ImuCamPose::Update, G2oTypes.cc): R <- R expSO3(dphi), p <- p + R dp.
 Jacobians come from jax.jacfwd through the full residual stack; the normal
 equations are a dense 15x15 (motion-only) or Schur-reduced K*15 solve —
-both tiny; the FLOPs live in the vmapped visual residuals which XLA fuses
-onto the MXU/VPU.
+both tiny; the FLOPs live in the vmapped visual residuals, which XLA
+fuses.
 """
 
 from __future__ import annotations

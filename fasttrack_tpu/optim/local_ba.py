@@ -5,7 +5,7 @@ covisibility-window keyframes (free) + frontier keyframes (fixed) + their
 map points; 5 LM iterations, chi2 outlier removal (5.991 mono / 7.815
 stereo), 10 more iterations; g2o block solver with landmark marginalization.
 
-TPU-first design: the BA window is a dense fixed-shape problem —
+Design: the BA window is a dense fixed-shape problem —
 (L points) x (K cameras) observation grid with a validity mask. Jacobians
 come from one vmapped autodiff over observation pairs; the landmark blocks
 are eliminated in closed form (3x3 inverses, batched) and the reduced camera

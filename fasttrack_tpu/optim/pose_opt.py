@@ -7,7 +7,7 @@ Structure mirrored from the reference:
   5.991 (mono, 2dof) / 7.815 (stereo, 3dof) at the current pose
 - rounds 0-1 use a Huber kernel, later rounds none (Optimizer.cc:1035)
 
-TPU-first design: edges never leave the graph — outliers become zero-weight
+Design: edges never leave the graph — outliers become zero-weight
 masked residuals, so the whole optimization is one fixed-shape jitted
 program: residual/Jacobian evaluation is a vmapped autodiff over N points
 (XLA fuses it with the projection), the normal equations are a 6x6 solve.
@@ -70,7 +70,7 @@ def pose_optimize(
         # ONE jacfwd over the 6-dim tangent of the FULL residual stack
         # (6 vectorized JVP passes). The per-point vmap(jacfwd) form traces
         # the residual once per point and compiled ~10x slower for identical
-        # output; compile time is a first-class cost on this backend.
+        # output.
         def res_of_xi(xi):
             Tp = se3_compose(se3_exp(xi), T)
             return _residuals(Tp, cam, bf, Xw, obs_uv, obs_ur, is_stereo)

@@ -6,7 +6,7 @@ EdgeInverseSim3ProjectXYZ) with Huber kernels and a two-round inlier
 re-toggle: optimize 5 iterations, drop edges with chi2 > 10, optimize 10
 more (Optimizer::OptimizeSim3, src/Optimizer.cc:2115-2318).
 
-TPU-first equivalent: one fixed-capacity jitted LM. Residuals are a single
+Design: one fixed-capacity jitted LM. Residuals are a single
 masked (4N,) vector — image-1 reprojections of cam2 points through S12
 stacked with image-2 reprojections of cam1 points through S12^-1 — the
 Jacobian comes from forward-mode AD of the Sim3 retraction at the identity,

@@ -7,7 +7,7 @@ selects H when SH/(SH+SF) > 0.4, then reconstructs R,t by testing all
 decompositions with a triangulation census (ReconstructH/ReconstructF,
 CheckRT :475-901).
 
-TPU-first design: instead of two threads iterating 200 hypotheses each, ALL
+Design: instead of two threads iterating 200 hypotheses each, ALL
 hypotheses for BOTH models are solved as one batched SVD and scored against
 all correspondences in one einsum — RANSAC becomes a data-parallel argmax.
 """

@@ -2,8 +2,9 @@
 
 The reference is single-process/single-GPU (SURVEY.md 2.4); this package is
 the new design territory: map points and keyframe blocks shard across a
-jax.sharding.Mesh, landmark Schur complements reduce over ICI via psum
-inside shard_map, and batches of frames extract in parallel across chips.
+jax.sharding.Mesh, landmark Schur complements reduce via psum inside
+shard_map (NCCL over NVLink between the GPUs of one host), and batches of
+frames extract in parallel across devices.
 """
 
 from fasttrack_tpu.parallel.dist_ba import (  # noqa: F401

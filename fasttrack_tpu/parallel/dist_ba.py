@@ -1,14 +1,15 @@
 """Distributed bundle adjustment + sharded frame extraction over a Mesh.
 
-The multi-host / multi-chip scaling design (SURVEY.md section 2.4 north
-star): landmarks shard across devices along the mesh axis "map"; each device
-builds the Schur contributions of its landmark shard and the reduced camera
-system is formed with one psum over ICI; the (small, dense) 6K x 6K solve is
-replicated, point back-substitution stays local to each shard. Frame batches
-shard across the same axis for parallel ORB extraction ("frame" parallelism
-— the multi-stream analog).
+The multi-device scaling design (SURVEY.md section 2.4): landmarks shard
+across devices along the flat 1-D mesh axis "map"; each device builds the
+Schur contributions of its landmark shard and the reduced camera system is
+formed with one psum; the (small, dense) 6K x 6K solve is replicated, point
+back-substitution stays local to each shard. Frame batches shard across the
+same axis for parallel ORB extraction ("frame" parallelism — the
+multi-stream analog).
 
-No NCCL/MPI anywhere: XLA inserts the collectives from shard_map specs.
+XLA inserts the collectives from the shard_map specs; on GPUs it hands them
+to NCCL, which runs them over NVLink between the cards of one host.
 """
 
 from __future__ import annotations
@@ -20,12 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-try:  # jax >= 0.6 moved shard_map around; prefer the public name
-    from jax import shard_map as _shard_map_mod  # type: ignore
-
-    shard_map = _shard_map_mod
-except Exception:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map  # type: ignore
+from jax import shard_map
 
 from fasttrack_tpu.cameras.models import Camera
 from fasttrack_tpu.geometry import SE3
@@ -48,7 +44,7 @@ def _ba_shard_step(
 
     IDENTICAL math to the single-device window solver — both consume
     optim.ba_core; the only distributed addition is the psum of the reduced
-    camera-system contributions over the mesh axis (ICI collective)."""
+    camera-system contributions over the mesh axis."""
     poses = SE3(poses_R, poses_t)
     r, behind = ba_core.residuals(poses, points, cam, bf, obs_uv, obs_ur)
     live = mask * (~behind) * jnp.isfinite(r).all(axis=-1)
@@ -63,7 +59,7 @@ def _ba_shard_step(
     S_off, rhs, Hcc, Hpp_inv, Hcp, bp = ba_core.schur_camera_contrib(
         Jc, Jp, r, w, lam, points.dtype
     )
-    # ICI reduction: every device gets the full reduced camera system.
+    # all-reduce: every device gets the full reduced camera system.
     S_off = jax.lax.psum(S_off, axis)
     rhs = jax.lax.psum(rhs, axis)
     Hcc = jax.lax.psum(Hcc, axis)

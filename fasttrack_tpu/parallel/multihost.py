@@ -1,23 +1,22 @@
-"""Multi-host (DCN) process groups for the distributed backend.
+"""Multi-process groups for the distributed backend.
 
-SURVEY.md section 5 north star: tracking streams per host feeding a shared
-map, with the landmark-sharded Schur BA reduced over ICI *within* a slice
-and `jax.distributed` process groups spanning hosts over DCN. The reference
-has no multi-node story (single process, std::thread); this module is the
-TPU-native extension point:
+SURVEY.md section 5: tracking streams per host feeding a shared map, with
+the landmark-sharded Schur BA reduced across every device of a
+`jax.distributed` process group. The reference has no multi-node story
+(single process, std::thread); this module is the extension point:
 
 - `initialize_distributed(...)` joins the process group (coordinator
   address + process id, or env vars) — after it, `jax.devices()` is GLOBAL
-  across hosts and every jitted shard_map program in parallel/dist_ba.py
-  runs multi-controller unchanged: XLA routes the psum over ICI inside a
-  slice and DCN between hosts.
+  across processes and every jitted shard_map program in
+  parallel/dist_ba.py runs multi-controller unchanged: XLA inserts the
+  collectives across processes (NCCL between GPUs).
 - `make_global_mesh()` builds the mesh over the global device list.
 - `shard_ba_problem(...)` turns a host-replicated BAProblem into global
   jax.Arrays (landmark axis sharded, camera axis replicated) via
   `jax.make_array_from_callback`, the multi-controller ingestion path.
 
 Tested with N local processes x M virtual CPU devices each (Gloo
-collectives) — the DCN analog available without N real hosts
+collectives), available without N real hosts
 (tools/bench_multichip.py --processes N).
 """
 

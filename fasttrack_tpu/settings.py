@@ -2,9 +2,11 @@
 
 Reads the reference's "File.version: 1.0" YAML schema (Camera1.*, Camera2.*,
 Stereo.*, ORBextractor.*, IMU.*, Viewer.*, System.*) so existing EuRoC /
-TUM-VI config files drive this framework unmodified. OpenCV FileStorage
-YAML begins with a %YAML directive and uses a few non-standard constructs
-(e.g. `!!opencv-matrix`) which are normalized before parsing.
+TUM-VI config files drive this framework unmodified. These files are
+OpenCV FileStorage YAML, of which they use a small subset that
+`parse_opencv_yaml` reads without a YAML library: a `%YAML` header, flat
+`Key.sub: value` scalars, and `!!opencv-matrix` blocks with `rows`, `cols`,
+`dt` and a (possibly multi-line) `data: [...]` list.
 """
 
 from __future__ import annotations
@@ -14,7 +16,6 @@ import re
 from typing import Optional
 
 import numpy as np
-import yaml
 
 from fasttrack_tpu.cameras import Camera, make_kannala_brandt8, make_pinhole
 
@@ -55,13 +56,88 @@ class Settings:
     save_atlas: Optional[str] = None
 
 
+_INT = re.compile(r"[-+]?\d+")
+
+
+def _strip_comment(line: str) -> str:
+    """Drop a `#` comment that is not inside quotes."""
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            if ch == quote:
+                quote = None
+        elif ch in "\"'":
+            quote = ch
+        elif ch == "#":
+            return line[:i]
+    return line
+
+
+def _scalar(text: str):
+    """A scalar or `[a, b, ...]` list: quoted string, int, float, bool or
+    bare string."""
+    text = text.strip()
+    if len(text) >= 2 and text[0] == text[-1] and text[0] in "\"'":
+        return text[1:-1]
+    if text.startswith("[") and text.endswith("]"):
+        return [_scalar(x) for x in text[1:-1].split(",") if x.strip()]
+    if _INT.fullmatch(text):
+        return int(text)
+    try:
+        return float(text)
+    except ValueError:
+        return {"true": True, "false": False}.get(text.lower(), text)
+
+
+def parse_opencv_yaml(text: str) -> dict:
+    """Parse the OpenCV-FileStorage subset of the reference's settings files.
+
+    Top-level `key: value` lines become scalars; a key whose value is
+    `!!opencv-matrix` (or empty) opens a mapping filled by the indented
+    lines below it. A value with an unclosed `[` continues over the next
+    lines. Raises ValueError on a line that is not `key: value`."""
+    entries = []   # (line number, indent, key, value text)
+    open_entry = None
+    for n, raw in enumerate(text.splitlines(), 1):
+        line = _strip_comment(raw).rstrip()
+        if open_entry is not None:
+            open_entry[3] += " " + line.strip()
+            if open_entry[3].count("[") <= open_entry[3].count("]"):
+                entries.append(tuple(open_entry))
+                open_entry = None
+            continue
+        stripped = line.strip()
+        if not stripped or stripped.startswith("%") or stripped == "---":
+            continue
+        key, sep, value = stripped.partition(":")
+        if not sep or not key.strip():
+            raise ValueError(f"settings line {n}: expected 'key: value', got {raw!r}")
+        entry = [n, len(line) - len(line.lstrip()), key.strip(), value.strip()]
+        if value.count("[") > value.count("]"):
+            open_entry = entry
+        else:
+            entries.append(tuple(entry))
+    if open_entry is not None:
+        raise ValueError(f"settings line {open_entry[0]}: unclosed '['")
+
+    out: dict = {}
+    block = None   # the mapping that indented lines belong to
+    for n, indent, key, value in entries:
+        if indent:
+            if block is None:
+                raise ValueError(f"settings line {n}: indented line outside a block")
+            block[key] = _scalar(value)
+        elif value in ("", "!!opencv-matrix"):
+            block = out[key] = {}
+        else:
+            block = None
+            out[key] = _scalar(value)
+    return out
+
+
 def _load_yaml(path: str) -> dict:
     with open(path) as f:
-        text = f.read()
-    # Strip OpenCV directives/tags that standard YAML chokes on.
-    text = re.sub(r"^%YAML.*$", "", text, flags=re.M)
-    text = text.replace("!!opencv-matrix", "")
-    return yaml.safe_load(text) or {}
+        return parse_opencv_yaml(f.read())
 
 
 def _mat(node) -> np.ndarray:

@@ -1,7 +1,7 @@
 """Map data model (the reference's L1: Atlas > Map > KeyFrame/MapPoint).
 
 Host-side Python objects orchestrating device-resident arrays: keypoint /
-descriptor tensors live on the TPU inside Frame snapshots; the graph
+descriptor tensors live on the device inside Frame snapshots; the graph
 structure (covisibility, spanning tree, observations) is plain Python — the
 same CPU/accelerator split the reference uses (graph on host, dense math on
 GPU).

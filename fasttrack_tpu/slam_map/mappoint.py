@@ -5,7 +5,7 @@ observation map {keyframe_id -> feature index}, scale-invariance distances
 and the visible/found counters used by MapPointCulling
 (LocalMapping.cc:346).
 
-Storage design (TPU-system-first): the numeric per-point fields (position,
+Storage design: the numeric per-point fields (position,
 normal, descriptors, distance band) live in the owning Map's packed array
 store (slam_map.map.PointStore) once the point is added to a map; the
 MapPoint object exposes them as properties over its assigned row. The

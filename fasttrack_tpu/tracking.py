@@ -150,7 +150,7 @@ class Tracker:
         )
         self._inv_sigma2 = 1.0 / (self._scale_factors**2)
         # Device-resident scalar operands, staged once (each fresh jnp scalar
-        # is its own host->device transfer on the remote link).
+        # is its own host->device transfer).
         self._bf_dev = jnp.float32(self.bf)
         self._minz_dev = jnp.float32(self.baseline)
         if self.use_imu:
@@ -175,8 +175,7 @@ class Tracker:
 
     def _snapshot(self, fd, timestamp) -> TrackedFrame:
         """Host snapshot in TWO device->host fetches (a packed f32 block +
-        packed descriptors; frame_pipeline.pack_frame_for_host) — each fetch
-        is a full round trip on a remote-device link."""
+        packed descriptors; frame_pipeline.pack_frame_for_host)."""
         from fasttrack_tpu.frame_pipeline import pack_frame_for_host
 
         f32_d, packed_d = pack_frame_for_host(fd)
@@ -348,9 +347,8 @@ class Tracker:
             # of the reference's toggle matrix (ORBextractor.cc:1374,
             # Frame.cc:156 CPU branches).
             return self._track_stereo_host(img_left, img_right, timestamp, t0)
-        # ONE uint8 host->device transfer for both cameras (the link's
-        # per-transfer overhead dominates at image sizes; float32 would 4x
-        # the wire bytes — the cast happens on device inside extraction).
+        # ONE uint8 host->device transfer for both cameras (float32 would 4x
+        # the bytes — the cast happens on device inside extraction).
         stacked = np.stack(
             [np.asarray(img_left, np.uint8), np.asarray(img_right, np.uint8)]
         )
@@ -1147,7 +1145,7 @@ class Tracker:
 
     def _track_reference_keyframe(self, frame: TrackedFrame) -> bool:
         """Tracking.cc:2777: descriptor match to the reference KF (the
-        reference uses BoW-accelerated matching; dense MXU Hamming needs no
+        reference uses BoW-accelerated matching; the dense Hamming matmul needs no
         acceleration structure) + pose optimization."""
         m = self.atlas.current
         kf = m.keyframes.get(self.ref_kf_id) if self.ref_kf_id is not None else None

@@ -3,7 +3,7 @@ MapDrawer.cc).
 
 The reference renders with Pangolin/OpenGL in a dedicated thread; this
 build renders headlessly (matplotlib Agg + raw NumPy overlays) — the right
-trade for a TPU pod host, which has no display. The Viewer thread polls the
+trade for an accelerator host, which has no display. The Viewer thread polls the
 Atlas at the configured FPS and writes PNG frames to a directory (playable
 as a video; the reference's interactive pause/step UI maps to just reading
 the files). All drawing is pure host-side NumPy/matplotlib: nothing touches

@@ -1,4 +1,4 @@
-"""Per-program on-chip timing of the bench tracking step.
+"""Per-program device timing of the bench tracking step.
 
 Mirrors the reference's REGISTER_STATS per-kernel breakdown
 (StereoMatchKernel.cu:636-706). Methodology: per-call block_until_ready
@@ -12,8 +12,9 @@ import time
 import numpy as np
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
+from fasttrack_tpu.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 
 import jax.numpy as jnp
 

@@ -1,4 +1,4 @@
-"""Multi-host (DCN-analog) process groups: 2 local processes x 4 virtual
+"""Multi-process groups: 2 local processes x 4 virtual
 CPU devices each run the landmark-sharded Schur BA as ONE 8-device program
 (jax.distributed + Gloo collectives) and must converge to the same optimum
 as the single-process path (SURVEY.md section 5 distributed backend)."""
@@ -22,7 +22,7 @@ class TestInitializeDistributed:
         """Global-array ingestion works on an ordinary (single-process)
         mesh and preserves values."""
         from fasttrack_tpu.parallel import make_global_mesh, shard_ba_problem
-        from tools.bench_multichip import make_problem
+        from fasttrack_tpu.parallel.synthetic_window import make_problem
 
         prob, cam, bf, _ = make_problem(K=8, L=256, obs_per_point=4)
         mesh = make_global_mesh()
@@ -39,7 +39,7 @@ class TestInitializeDistributed:
         from fasttrack_tpu.parallel import (
             distributed_bundle_adjustment, make_global_mesh, shard_ba_problem,
         )
-        from tools.bench_multichip import make_problem
+        from fasttrack_tpu.parallel.synthetic_window import make_problem
 
         prob, cam, bf, _ = make_problem(K=8, L=256, obs_per_point=4)
         mesh = make_global_mesh()
@@ -60,7 +60,8 @@ class TestTwoProcessGroup:
         from fasttrack_tpu.parallel import (
             distributed_bundle_adjustment, make_mesh,
         )
-        from tools.bench_multichip import make_problem, run_multiprocess
+        from fasttrack_tpu.parallel.synthetic_window import make_problem
+        from tools.bench_multichip import run_multiprocess
 
         out = run_multiprocess(2, devices_per_process=4, port=43911)
         assert out["processes"] == 2

@@ -147,6 +147,38 @@ class TestSearchByProjection:
         agree = (got_ok == oracle_ok) & (~oracle_ok | (got_idx == oracle_idx))
         assert agree.mean() > 0.99, f"top-K parity {agree.mean():.3f}"
 
+    def test_validity_and_taken_penalties(self, rng):
+        """The rank-1 validity/taken penalties broadcast over the Hamming
+        matrix: against a masked exact argmin, at the tile-aligned (M, N)
+        shapes of the matchers."""
+        M, N, R = 256, 128, 6.0
+        kp_uv, kp_desc, kp_level, _ = self.make_frame(rng, N)
+        kp_valid = rng.random(N) > 0.2
+        taken = rng.random(N) < 0.2
+        src = rng.integers(0, N, M)
+        q_uv = np.asarray(kp_uv)[src] + rng.uniform(-2, 2, (M, 2)).astype(np.float32)
+        q_valid = rng.random(M) > 0.2
+        q_desc = np.asarray(kp_desc)[src]
+        res = search_by_projection(
+            jnp.asarray(q_uv[:, 0]), jnp.asarray(q_uv[:, 1]), jnp.asarray(q_desc),
+            jnp.full(M, R), jnp.zeros(M, jnp.int32), jnp.full(M, 3, jnp.int32),
+            jnp.asarray(q_valid), kp_uv[:, 0], kp_uv[:, 1], kp_desc, kp_level,
+            jnp.asarray(kp_valid), kp_taken=jnp.asarray(taken),
+        )
+        ham = (256 - q_desc.astype(np.int32) @ np.asarray(kp_desc, np.int32).T) // 2
+        uv = np.asarray(kp_uv)
+        in_win = ((np.abs(uv[None, :, 0] - q_uv[:, None, 0]) <= R)
+                  & (np.abs(uv[None, :, 1] - q_uv[:, None, 1]) <= R))
+        allowed = in_win & q_valid[:, None] & (kp_valid & ~taken)[None, :]
+        masked = np.where(allowed, ham, 10**6)
+        want_ok = masked.min(1) <= 100
+        got_ok, got_idx = np.asarray(res.ok), np.asarray(res.idx)
+        np.testing.assert_array_equal(got_ok, want_ok)
+        assert not got_ok[~q_valid].any()
+        assert (kp_valid & ~taken)[got_idx[got_ok]].all()
+        np.testing.assert_array_equal(
+            np.asarray(res.dist)[got_ok], masked.min(1)[got_ok])
+
     def test_resolve_duplicates(self):
         idx = jnp.asarray([3, 3, 7], jnp.int32)
         dist = jnp.asarray([10, 4, 9], jnp.int32)

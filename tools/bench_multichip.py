@@ -4,17 +4,14 @@
 Runs the landmark-sharded Schur-complement LM (parallel/dist_ba.py) on a
 realistic covisibility window (default 100 KFs / 10k points, ~8
 observations per point) at N = 1, 2, 4, 8 devices and reports
-iterations/second per N — the scaling table VERDICT asked MULTICHIP to
-carry.
+iterations/second per N.
 
-CAVEAT printed with the result: with xla_force_host_platform_device_count
-the N "devices" share one physical CPU, so the table validates the sharded
-program (collective placement, per-shard work division) and measures
-framework overhead vs N — it is NOT an ICI-bandwidth measurement. On real
-multi-chip hardware each shard runs on its own chip.
+CAVEAT printed with the result: run as a script, it forces the CPU with 8
+virtual devices, which share one physical CPU, so the table validates the
+sharded program (collective placement, per-shard work division) and
+measures framework overhead vs N. It is not a device measurement.
 
-Usage:  XLA_FLAGS=--xla_force_host_platform_device_count=8 \
-        JAX_PLATFORMS=cpu python tools/bench_multichip.py
+Usage:  python tools/bench_multichip.py [--processes N]
 """
 
 import json
@@ -24,76 +21,26 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-_flags = os.environ.get("XLA_FLAGS", "")
-if "xla_force_host_platform_device_count" not in _flags:
-    os.environ["XLA_FLAGS"] = (
-        _flags + " --xla_force_host_platform_device_count=8"
-    ).strip()
-
 import jax  # noqa: E402
 
-jax.config.update("jax_platforms", "cpu")
-
-import numpy as np  # noqa: E402
-import jax.numpy as jnp  # noqa: E402
+from fasttrack_tpu.parallel.synthetic_window import make_problem  # noqa: E402
 
 
-def make_problem(K=100, L=10240, obs_per_point=8, seed=0):
-    """Synthetic covisibility window: a forward trajectory viewing a point
-    cloud; each point observed by `obs_per_point` consecutive keyframes."""
-    from fasttrack_tpu.cameras import make_pinhole, project
-    from fasttrack_tpu.geometry import SE3
-    from fasttrack_tpu.optim import BAProblem
-
-    rng = np.random.default_rng(seed)
-    cam = make_pinhole(400.0, 400.0, 376.0, 240.0, 752, 480)
-    bf = 40.0
-    X = np.stack([
-        rng.uniform(-8, 8, L), rng.uniform(-4, 4, L),
-        rng.uniform(6, 20, L) + np.repeat(
-            np.linspace(0, 0.4 * K, L // obs_per_point + 1),
-            obs_per_point)[:L],
-    ], -1).astype(np.float32)
-    R = np.tile(np.eye(3, dtype=np.float32), (K, 1, 1))
-    t = np.stack([np.zeros(K), np.zeros(K), -0.4 * np.arange(K)], -1)
-    t = t.astype(np.float32)
-
-    obs_uv = np.zeros((L, K, 2), np.float32)
-    obs_ur = np.full((L, K), -1.0, np.float32)
-    mask = np.zeros((L, K), bool)
-    # point l is observed by obs_per_point KFs around its "birth" keyframe
-    birth = (np.arange(L) * K // L).astype(np.int32)
-    for l in range(L):
-        for k in range(birth[l], min(birth[l] + obs_per_point, K)):
-            Xc = R[k] @ X[l] + t[k]
-            if Xc[2] < 0.5:
-                continue
-            u = 400.0 * Xc[0] / Xc[2] + 376.0
-            v = 400.0 * Xc[1] / Xc[2] + 240.0
-            if 0 <= u < 752 and 0 <= v < 480:
-                obs_uv[l, k] = (u + rng.normal(0, 0.3), v + rng.normal(0, 0.3))
-                obs_ur[l, k] = u - bf / Xc[2]
-                mask[l, k] = True
-
-    prob = BAProblem(
-        poses=SE3(jnp.asarray(R), jnp.asarray(t + rng.normal(0, 0.02, t.shape)
-                                              .astype(np.float32))),
-        points=jnp.asarray(X + rng.normal(0, 0.05, X.shape).astype(np.float32)),
-        obs_uv=jnp.asarray(obs_uv),
-        obs_ur=jnp.asarray(obs_ur),
-        inv_sigma2=jnp.ones((L, K)),
-        mask=jnp.asarray(mask),
-        cam_free=jnp.asarray(np.arange(K) >= 2),
-        point_free=jnp.ones(L, bool),
-    )
-    return prob, cam, bf, int(mask.sum())
+def _force_virtual_cpu_mesh():
+    """Run on the CPU with 8 virtual devices (before any backend is
+    initialised)."""
+    flags = os.environ.get("XLA_FLAGS", "")
+    if "xla_force_host_platform_device_count" not in flags:
+        os.environ["XLA_FLAGS"] = (
+            flags + " --xla_force_host_platform_device_count=8"
+        ).strip()
+    jax.config.update("jax_platforms", "cpu")
 
 
 def worker(process_id: int, num_processes: int, port: int):
-    """Multi-process (DCN-analog) worker: join the process group, build the
+    """Multi-process worker: join the process group, build the
     SAME seeded window on every process, shard it over the GLOBAL mesh, and
-    run the landmark-sharded LM — cross-process psum over Gloo (on real
-    hardware: DCN between hosts, ICI within a slice)."""
+    run the landmark-sharded LM — cross-process psum over Gloo."""
     from fasttrack_tpu.parallel import (
         distributed_bundle_adjustment,
         initialize_distributed,
@@ -199,7 +146,7 @@ def main():
         "iters": iters,
         "table": table,
         "caveat": "virtual CPU mesh shares one physical CPU: validates the "
-                  "sharded program + overhead-vs-N, not ICI bandwidth",
+                  "sharded program + overhead-vs-N, not a device measurement",
     }
     print(json.dumps(out))
     return out
@@ -209,8 +156,9 @@ if __name__ == "__main__":
     if os.environ.get("BMC_WORKER"):
         pid, nproc, port = os.environ["BMC_WORKER"].split(":")
         worker(int(pid), int(nproc), int(port))
-    elif "--processes" in sys.argv:
-        n = int(sys.argv[sys.argv.index("--processes") + 1])
-        run_multiprocess(n)
     else:
-        main()
+        _force_virtual_cpu_mesh()
+        if "--processes" in sys.argv:
+            run_multiprocess(int(sys.argv[sys.argv.index("--processes") + 1]))
+        else:
+            main()

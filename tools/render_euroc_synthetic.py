@@ -39,6 +39,49 @@ def rot_to_quat_wxyz(R):
     return q[3], q[0], q[1], q[2]
 
 
+def settings_yaml(seq, w: int, h: int, fps: float, imu: bool = True) -> str:
+    """The File.version-1.0 settings of a rendered sequence (OpenCV
+    FileStorage YAML, with the IMU block when `imu`)."""
+    text = f"""%YAML:1.0
+---
+File.version: "1.0"
+Camera.type: "PinHole"
+Camera1.fx: {seq.fx}
+Camera1.fy: {seq.fy}
+Camera1.cx: {seq.cx}
+Camera1.cy: {seq.cy}
+Camera.width: {w}
+Camera.height: {h}
+Camera.fps: {fps}
+Camera.RGB: 1
+Stereo.ThDepth: 60.0
+Stereo.b: {seq.baseline}
+ORBextractor.nFeatures: 512
+ORBextractor.scaleFactor: 1.2
+ORBextractor.nLevels: 4
+"""
+    if imu:
+        # Synthetic body frame == cam0 frame (datasets/synthetic.py IMU
+        # generation); the stream itself is noise-free, so the noise
+        # densities below only size the preintegration covariance
+        # (EuRoC-like values, Settings.cc IMU.* keys).
+        text += """IMU.T_b_c1: !!opencv-matrix
+   rows: 4
+   cols: 4
+   dt: f
+   data: [1.0, 0.0, 0.0, 0.0,
+          0.0, 1.0, 0.0, 0.0,
+          0.0, 0.0, 1.0, 0.0,
+          0.0, 0.0, 0.0, 1.0]
+IMU.NoiseGyro: 1.7e-4
+IMU.NoiseAcc: 2.0e-3
+IMU.GyroWalk: 1.9e-5
+IMU.AccWalk: 3.0e-3
+IMU.Frequency: 200.0
+"""
+    return text
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("out")
@@ -108,43 +151,8 @@ def main():
             f.write("\n".join(rows) + "\n")
 
     with open(os.path.join(args.out, "settings.yaml"), "w") as f:
-        f.write(f"""%YAML:1.0
----
-File.version: "1.0"
-Camera.type: "PinHole"
-Camera1.fx: {seq.fx}
-Camera1.fy: {seq.fy}
-Camera1.cx: {seq.cx}
-Camera1.cy: {seq.cy}
-Camera.width: {args.w}
-Camera.height: {args.h}
-Camera.fps: {args.fps}
-Camera.RGB: 1
-Stereo.ThDepth: 60.0
-Stereo.b: {seq.baseline}
-ORBextractor.nFeatures: 512
-ORBextractor.scaleFactor: 1.2
-ORBextractor.nLevels: 4
-""")
-        if not args.no_imu:
-            # Synthetic body frame == cam0 frame (datasets/synthetic.py
-            # IMU generation); the stream itself is noise-free, so the
-            # noise densities below only size the preintegration
-            # covariance (EuRoC-like values, Settings.cc IMU.* keys).
-            f.write("""IMU.T_b_c1: !!opencv-matrix
-   rows: 4
-   cols: 4
-   dt: f
-   data: [1.0, 0.0, 0.0, 0.0,
-          0.0, 1.0, 0.0, 0.0,
-          0.0, 0.0, 1.0, 0.0,
-          0.0, 0.0, 0.0, 1.0]
-IMU.NoiseGyro: 1.7e-4
-IMU.NoiseAcc: 2.0e-3
-IMU.GyroWalk: 1.9e-5
-IMU.AccWalk: 3.0e-3
-IMU.Frequency: 200.0
-""")
+        f.write(settings_yaml(seq, args.w, args.h, args.fps,
+                              imu=not args.no_imu))
     print(f"wrote {len(seq.frames)} stereo frames + gt + settings under "
           f"{args.out}")
 

@@ -2,7 +2,7 @@
 """Train and ship the 32k-leaf hierarchical (2-level) ORB vocabulary.
 
 DBoW2's tree exists because a CPU cannot afford a flat argmin over 1M
-words per descriptor; the MXU analog (SURVEY 2.3) is a STAGED Hamming
+words per descriptor; the matmul analog (SURVEY 2.3) is a STAGED Hamming
 argmin: one matmul against the B=64 level-1 nodes, then one small matmul
 against the chosen node's C=512 children. Training is hierarchical
 k-majority: coarse k-majority for the nodes, then an independent
